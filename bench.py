@@ -1,29 +1,20 @@
-"""Benchmark: 1080p dense MV fields/sec/chip, full pipeline.
+"""Benchmark: 1080p dense MV fields per second on one device, full pipeline.
 
-Workload: a batch of eight 1080p (1080x1920) grayscale frame pairs through the flagship
-configuration - 4-level pyramid, 32px blocks, 64px search windows (the
-reference's shipped config, main_class.cpp:19-21, minus the 4x Middlebury
-interpolation trick), windowed regularization (the gather-free TPU schedule)
-WITH rival windows to 1px blocks.  This is the accuracy-qualified
-production config = the library DEFAULT MotionConfig(): the per-level
-rival-radius schedule (12, full, 8, 8) closes the windowed-vs-fourcolor
-gap to 0.0087 mean EPE / 0.0317 worst-sequence (EVAL_full.md; r8 was
-0.0188/0.0735, no-rival 0.0953), and the hybrid rival kernel (dense main
-CV + slab-recomputed rival candidates, kernels/fused_step.py) runs it at
-B=8 with no second cost volume.  The default also enables r_store
-(cv_store_radius=8): the cur=2 volume keeps only a reduced column-delta
-band, tail candidates recomputed bit-exactly from the window slab
-(measured bit-equal to dense, scripts/tpu_rstore_bench.py).
+Workload: a batch of eight 1080p (1080x1920) grayscale frame pairs through the
+library-default ``MotionConfig`` - 4-level pyramid, 32px blocks, 64px search
+windows (the reference's shipped config, main_class.cpp:19-21, minus the 4x
+Middlebury interpolation trick), windowed regularization with per-level
+rival windows down to 1px blocks (the rival-radius schedule (12, full, 8, 8)
+holds the windowed-vs-fourcolor gap to 0.0087 mean EPE, EVAL_full.md).
 
-Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"}.
+Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline", "device"}.
 
 vs_baseline: the reference publishes no wall-clock numbers (SURVEY.md section
 6), so the denominator is MEASURED: a single-threaded portable C++ replica of
 the reference pipeline (spiral SAD search + fast_array cache + Gauss-Seidel
 sweeps, ``native/baseline_ref.cpp``), built with g++ -O3 and timed at this
-exact workload on this machine's Xeon - 0.522 s/field = 1.915 fields/s
-(``native/BASELINE_CPP.json``; the VS2013-era CPU the reference actually ran
-on would be several times slower, so the ratio is conservative).
+exact workload on a Xeon host - 0.522 s/field = 1.915 fields/s
+(``native/BASELINE_CPP.json``).
 vs_baseline = measured_fields_per_sec / baseline_fields_per_sec.
 """
 
@@ -35,20 +26,21 @@ import numpy as np
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from blockbasedmotionestimation.utils import compile_cache
+
+compile_cache.enable()
 
 import jax.numpy as jnp
 
-from blockbasedmotionestimation_tpu.config import MotionConfig
-from blockbasedmotionestimation_tpu.models.engine import estimate_flow_batched
+from blockbasedmotionestimation.config import MotionConfig
+from blockbasedmotionestimation.models.engine import estimate_flow_batched
 
 
 def _baseline_fields_per_sec() -> float:
     """Measured C++ single-thread rate (see module docstring)."""
     path = os.path.join(
         os.path.dirname(os.path.abspath(__file__)),
-        "blockbasedmotionestimation_tpu", "native", "BASELINE_CPP.json",
+        "blockbasedmotionestimation", "native", "BASELINE_CPP.json",
     )
     with open(path) as f:
         return float(json.load(f)["fields_per_sec"])
@@ -59,71 +51,45 @@ _BASELINE_FIELDS_PER_SEC = _baseline_fields_per_sec()
 H, W = 1080, 1920
 
 
-def _sync(x) -> float:
-    # On asynchronous remote backends block_until_ready can return before the
-    # remote execution drains; a scalar device->host fetch is a true barrier.
-    return float(np.asarray(x[0, 0, 0]))
-
-
 def main() -> None:
-    cfg = MotionConfig(
-        block_sizes=(32, 32, 32, 32),
-        search_sizes=(64, 64, 64, 64),
-        interp_factor=1,
-        regularizer="windowed",  # the TPU production fast path
-        rival_window=True,       # accuracy-qualified (see EVAL_full.md)
-        # rival_radius / cv_store_radius: the shipped defaults (the bench
-        # IS the default MotionConfig at the reference's frame geometry)
-    )
+    cfg = MotionConfig(interp_factor=1)  # the library default at 1080p
     rng = np.random.default_rng(0)
-    B = 8  # production throughput batch: one jitted program, B fields.
-    # B-scaling re-measured r5 at the shipped default: 31.8 at B=8,
-    # 32.0 at B=12 (noise), OOM at B=16 - B=8 remains the choice
+    B = 8  # one jitted program, B fields
     base = rng.integers(0, 256, size=(B, H + 16, W + 16), dtype=np.uint8)
     im1 = jax.device_put(jnp.asarray(base[:, :H, :W]))
     im2 = jax.device_put(jnp.asarray(base[:, 5:5 + H, 9:9 + W]))
 
     flow, _ = estimate_flow_batched(im1, im2, cfg)  # compile + warm up
-    _sync(flow[0])
+    jax.block_until_ready(flow)
 
-    t0 = time.time()
+    t0 = time.perf_counter()
     flow, _ = estimate_flow_batched(im1, im2, cfg)
-    _sync(flow[0])
-    once = time.time() - t0
+    jax.block_until_ready(flow)
+    once = time.perf_counter() - t0
 
     iters = max(1, min(20, int(20.0 / max(once, 1e-3))))
-    t0 = time.time()
+    t0 = time.perf_counter()
     for _ in range(iters):
         flow, _ = estimate_flow_batched(im1, im2, cfg)
-        _sync(flow[0])
-    dt = (time.time() - t0) / iters / B
+        jax.block_until_ready(flow)
+    dt = (time.perf_counter() - t0) / iters / B
 
     fields_per_sec = 1.0 / dt
-
-    # machine-checkable roofline: the fused windowed pipeline's PER-COMPONENT
-    # structural floor (r4: pyramid/gather/CV build/search/CV stream/step
-    # operands/rival slabs itemized and audited term-by-term against a
-    # per-op trace - see utils.profiling.windowed_pipeline_roofline,
-    # scripts/tpu_roofline_audit.py, and FLOOR.md; the r3 single-term floor
-    # left ~16 ms/field of real work outside the model)
-    from blockbasedmotionestimation_tpu.ops import pad as pad_ops
-    from blockbasedmotionestimation_tpu.utils import profiling
-
-    p = pad_ops.compute_padding(H, W, cfg)
-    roof = profiling.windowed_pipeline_roofline(cfg, p.padded_h, p.padded_w)
-    floor_s = roof["total_floor_s"]
+    dev = jax.devices()[0]
     print(
         json.dumps(
             {
-                "metric": "1080p_mv_fields_per_sec_per_chip",
-                "value": round(fields_per_sec, 4),
+                "metric": "1080p_mv_fields_per_sec_per_device",
+                "value": fields_per_sec,
                 "unit": "fields/s",
-                "vs_baseline": round(fields_per_sec / _BASELINE_FIELDS_PER_SEC, 3),
+                "vs_baseline": fields_per_sec / _BASELINE_FIELDS_PER_SEC,
                 "baseline_fields_per_sec": _BASELINE_FIELDS_PER_SEC,
                 "baseline_kind": "measured single-thread C++ replica (native/BASELINE_CPP.json)",
-                "floor_ms_per_field": round(floor_s * 1e3, 2),
-                "floor_kind": "per-component roofline (FLOOR.md)",
-                "sol_fraction": round(floor_s / dt, 4),
+                "device": {
+                    "platform": dev.platform,
+                    "kind": dev.device_kind,
+                    "count": len(jax.devices()),
+                },
             }
         )
     )

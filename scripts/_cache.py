@@ -4,7 +4,6 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
+from blockbasedmotionestimation.utils import compile_cache
 
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+compile_cache.enable()

@@ -12,8 +12,8 @@ import time
 import _cache  # noqa: F401
 import numpy as np
 
-from blockbasedmotionestimation_tpu.config import MotionConfig
-from blockbasedmotionestimation_tpu.models import evaluate
+from blockbasedmotionestimation.config import MotionConfig
+from blockbasedmotionestimation.models import evaluate
 
 GT_DIR = "/root/reference/middlebury/gt-flow"
 SEQS = tuple(sys.argv[1:]) or ("Urban2", "Urban3", "Grove3", "Venus")

@@ -27,8 +27,6 @@ if "xla_force_host_platform_device_count" not in xla_flags:
 import jax
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 import numpy as np
 import jax.numpy as jnp
@@ -36,10 +34,14 @@ from jax.sharding import Mesh
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from blockbasedmotionestimation_tpu.config import MotionConfig
-from blockbasedmotionestimation_tpu.ops import pad as pad_ops
-from blockbasedmotionestimation_tpu.parallel import tiled
-from blockbasedmotionestimation_tpu.utils import synth
+from blockbasedmotionestimation.utils import compile_cache
+
+compile_cache.enable()
+
+from blockbasedmotionestimation.config import MotionConfig
+from blockbasedmotionestimation.ops import pad as pad_ops
+from blockbasedmotionestimation.parallel import tiled
+from blockbasedmotionestimation.utils import synth
 
 H = int(sys.argv[1]) if len(sys.argv) > 1 else 4320
 W = int(sys.argv[2]) if len(sys.argv) > 2 else 7680
@@ -83,8 +85,8 @@ im2p = pad_ops.pad_frame(jnp.asarray(im2), p)
 from jax import shard_map
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from blockbasedmotionestimation_tpu.models import engine
-from blockbasedmotionestimation_tpu.ops import resample
+from blockbasedmotionestimation.models import engine
+from blockbasedmotionestimation.ops import resample
 
 t0 = time.time()
 pyr1 = resample.build_pyramid(im1p, cfg.num_levels)

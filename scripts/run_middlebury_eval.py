@@ -11,8 +11,8 @@ import time
 import jax
 import _cache  # noqa: F401
 
-from blockbasedmotionestimation_tpu.config import MotionConfig
-from blockbasedmotionestimation_tpu.models import evaluate
+from blockbasedmotionestimation.config import MotionConfig
+from blockbasedmotionestimation.models import evaluate
 
 GT_DIR = "/root/reference/middlebury/gt-flow"
 mode = sys.argv[1] if len(sys.argv) > 1 else "quick"
@@ -26,7 +26,7 @@ else:
 
 # full mode runs only the windowed-family paths: the gather-based
 # fourcolor path at the 4x-interpolated resolution issues pathological
-# per-candidate gathers (it crashed a TPU worker once) - its full-config
+# per-candidate gathers - its full-config
 # column comes from the CPU runner (run_fourcolor_full_cpu.py); quick mode
 # compares everything directly.
 # rival_window/rival_radius default ON since r3: pin every column explicitly

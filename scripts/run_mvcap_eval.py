@@ -6,7 +6,7 @@ than asserted harmless.  Middlebury GT motion tops out ~10 px (x4 interp =
 ~40 px processed), safely under the cap, so the expected delta is zero -
 this run pins that.
 
-Run on the TPU from repo root: python scripts/run_mvcap_eval.py
+Run on the GPU from repo root: python scripts/run_mvcap_eval.py
 """
 
 import json
@@ -15,8 +15,8 @@ import time
 
 import _cache  # noqa: F401
 
-from blockbasedmotionestimation_tpu.config import MotionConfig
-from blockbasedmotionestimation_tpu.models import evaluate
+from blockbasedmotionestimation.config import MotionConfig
+from blockbasedmotionestimation.models import evaluate
 
 GT_DIR = "/root/reference/middlebury/gt-flow"
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

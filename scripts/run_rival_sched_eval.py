@@ -7,7 +7,7 @@ levels have few parents, so full radius THERE is nearly free: this measures
 the per-level schedules (finest level first; None = full radius) on the
 synthetic GT-warp Middlebury pairs, same protocol as EVAL_rival_full.json.
 
-Run on the TPU from repo root: python scripts/run_rival_sched_eval.py
+Run on the GPU from repo root: python scripts/run_rival_sched_eval.py
 """
 
 import json
@@ -16,8 +16,8 @@ import time
 
 import _cache  # noqa: F401
 
-from blockbasedmotionestimation_tpu.config import MotionConfig
-from blockbasedmotionestimation_tpu.models import evaluate
+from blockbasedmotionestimation.config import MotionConfig
+from blockbasedmotionestimation.models import evaluate
 
 GT_DIR = "/root/reference/middlebury/gt-flow"
 OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),

@@ -34,9 +34,9 @@ def main() -> int:
 
     import numpy as np
 
-    from blockbasedmotionestimation_tpu.config import MotionConfig
-    from blockbasedmotionestimation_tpu.models import engine
-    from blockbasedmotionestimation_tpu.parallel import multihost, tiled
+    from blockbasedmotionestimation.config import MotionConfig
+    from blockbasedmotionestimation.models import engine
+    from blockbasedmotionestimation.parallel import multihost, tiled
 
     multihost.initialize_from_env()
     multihost.initialize_from_env()  # idempotency check

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from blockbasedmotionestimation_tpu import cli
-from blockbasedmotionestimation_tpu.utils import flowio
+from blockbasedmotionestimation import cli
+from blockbasedmotionestimation.utils import flowio
 
 
 @pytest.fixture
@@ -78,8 +78,8 @@ def test_graft_entry_single_chip():
 
 
 def test_cli_sequence(tmp_path, rng):
-    from blockbasedmotionestimation_tpu import cli
-    from blockbasedmotionestimation_tpu.utils import flowio
+    from blockbasedmotionestimation import cli
+    from blockbasedmotionestimation.utils import flowio
 
     m = 10
     base = rng.integers(0, 256, size=(48 + 2 * m, 64 + 2 * m), dtype=np.uint8)

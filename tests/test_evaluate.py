@@ -5,9 +5,9 @@ import os
 import numpy as np
 import pytest
 
-from blockbasedmotionestimation_tpu.config import MotionConfig
-from blockbasedmotionestimation_tpu.models import evaluate
-from blockbasedmotionestimation_tpu.utils import flowio, synth
+from blockbasedmotionestimation.config import MotionConfig
+from blockbasedmotionestimation.models import evaluate
+from blockbasedmotionestimation.utils import flowio, synth
 
 GT_DIR = "/root/reference/middlebury/gt-flow"
 

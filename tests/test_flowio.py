@@ -1,14 +1,13 @@
 """Tests for .flo I/O, colorization, and EPE (rw_flow.cpp parity)."""
 
-import glob
 import struct
 
 import numpy as np
 import pytest
 
-from blockbasedmotionestimation_tpu.utils import flowio
+from blockbasedmotionestimation.utils import flowio, synth
 
-GT_GLOB = "/root/reference/middlebury/gt-flow/*/flow10.flo"
+# the Middlebury gt-flow sizes (height, width)
 EXPECTED_DIMS = {
     "Dimetrodon": (388, 584),
     "Hydrangea": (388, 584),
@@ -29,16 +28,20 @@ def test_roundtrip(tmp_path, rng):
     np.testing.assert_array_equal(back, flow)
 
 
-def test_reads_all_bundled_gt():
-    paths = sorted(glob.glob(GT_GLOB))
-    assert len(paths) == 8
-    for p in paths:
-        seq = p.split("/")[-2]
-        flow = flowio.read_flo(p)
-        assert flow.shape[:2] == EXPECTED_DIMS[seq], seq
+def test_reads_all_bundled_gt(tmp_path):
+    # one seeded multi-motion field per Middlebury sequence size, with an
+    # unknown-flow band, written as .flo and read back bit for bit
+    for k, (seq, dims) in enumerate(sorted(EXPECTED_DIMS.items())):
+        gt = synth.multi_motion_flow(*dims, seed=k)
+        gt[: dims[0] // 10] = 1e10  # unknown flow (> UNKNOWN_FLOW_THRESH)
+        path = str(tmp_path / f"{seq}.flo")
+        flowio.write_flo(path, gt)
+        flow = flowio.read_flo(path)
+        assert flow.shape[:2] == dims, seq
         assert flow.dtype == np.float32
-        # every sequence has at least some known flow
-        assert (~flowio.unknown_flow_mask(flow)).sum() > 0
+        np.testing.assert_array_equal(flow, gt)
+        known = ~flowio.unknown_flow_mask(flow)
+        assert 0 < known.sum() < known.size
 
 
 def test_bad_tag(tmp_path):

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from blockbasedmotionestimation_tpu.utils import flowio, native_io
+from blockbasedmotionestimation.utils import flowio, native_io
 
 pytestmark = pytest.mark.skipif(
     not native_io.available(), reason="native library failed to build"

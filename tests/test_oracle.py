@@ -1,6 +1,6 @@
 """Tests of the sequential NumPy/OpenCV oracle itself.
 
-The oracle is the bit-exactness anchor for the TPU engine, so its own
+The oracle is the bit-exactness anchor for the JAX engine, so its own
 subroutines are validated here: padding rule, spiral search vs a brute-force
 re-simulation, shift recovery on synthetic translations, and driver plumbing.
 """
@@ -8,9 +8,9 @@ re-simulation, shift recovery on synthetic translations, and driver plumbing.
 import numpy as np
 import pytest
 
-from blockbasedmotionestimation_tpu.config import MotionConfig, tiny_config
-from blockbasedmotionestimation_tpu.models import oracle
-from blockbasedmotionestimation_tpu.ops import spiral
+from blockbasedmotionestimation.config import MotionConfig, tiny_config
+from blockbasedmotionestimation.models import oracle
+from blockbasedmotionestimation.ops import spiral
 
 
 def make_textured(rng, h, w):

@@ -1,10 +1,10 @@
-"""Multihost helpers + profiling utilities (single-process approximations)."""
+"""Multihost helpers, profiling utilities and the compile-cache helper."""
 
 import jax
 import numpy as np
 
-from blockbasedmotionestimation_tpu.parallel import multihost
-from blockbasedmotionestimation_tpu.utils import profiling
+from blockbasedmotionestimation.parallel import multihost
+from blockbasedmotionestimation.utils import profiling
 
 
 def test_make_mesh_shapes():
@@ -31,27 +31,34 @@ def test_phase_timer(rng):
     assert "total" in times.report()
 
 
-def test_speed_of_light_accounting():
-    out = profiling.speed_of_light(1088, 1920, 32, 64, seconds=0.01)
-    assert out["useful_ops"] == (1088 // 32) * (1920 // 32) * 33 * 33 * 1024
-    assert 0 < out["fraction_of_nominal"] < 1e6
+def test_compile_cache_honours_env(monkeypatch, tmp_path):
+    # JAX_COMPILATION_CACHE_DIR set: the cache goes exactly there
+    from blockbasedmotionestimation.utils import compile_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    try:
+        assert compile_cache.enable() == str(tmp_path)
+        assert jax.config.jax_compilation_cache_dir == str(tmp_path)
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
 
 
-def test_windowed_pipeline_floor_model():
-    # the bench config's structural floor, checked against hand arithmetic
-    from blockbasedmotionestimation_tpu.config import MotionConfig
+def test_compile_cache_default_inside_checkout(monkeypatch):
+    # unset: a fixed .jax_cache/ at the checkout root (listed in .gitignore)
+    import os
 
-    cfg = MotionConfig(interp_factor=1, regularizer="windowed")
-    out = profiling.windowed_pipeline_floor(cfg, 1280, 2048)
-    # VPU: 4 ops x 33^2 deltas x every pixel of every level
-    px = sum((1280 >> l) * (2048 >> l) for l in range(4))
-    assert out["vpu_ops"] == 4 * 33 * 33 * px
-    # HBM: each round's CV entries x bytes x (1 write + sweeps reads)
-    b0 = 0
-    for cur, nb in ((32, 4), (16, 2), (8, 2), (4, 2), (2, 2)):
-        b0 += 33 * 33 * (1280 // cur) * (2048 // cur) * nb * 3
-    assert out["hbm_bytes"] == sum(b0 >> (2 * l) for l in range(4))
-    # the floor must be a real bound: single-digit-to-tens of ms per field,
-    # and the r1 bench measurement (~37 ms/field) sits above it
-    assert 0.003 < out["floor_s"] < 0.040, out
-    assert out["floor_s"] == max(out["vpu_s"], out["hbm_s"])
+    from blockbasedmotionestimation.utils import compile_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    try:
+        assert compile_cache.enable() == os.path.join(root, ".jax_cache")
+        assert jax.config.jax_compilation_cache_dir == os.path.join(
+            root, ".jax_cache"
+        )
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+    with open(os.path.join(root, ".gitignore")) as f:
+        assert ".jax_cache/" in f.read().split()

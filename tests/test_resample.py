@@ -5,7 +5,7 @@ import pytest
 
 cv2 = pytest.importorskip("cv2")
 
-from blockbasedmotionestimation_tpu.ops import resample
+from blockbasedmotionestimation.ops import resample
 
 
 @pytest.mark.parametrize("shape", [(8, 8), (32, 48), (64, 64), (100, 124), (388 + 0, 584 + 0)])

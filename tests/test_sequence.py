@@ -5,9 +5,9 @@ import os
 
 import numpy as np
 
-from blockbasedmotionestimation_tpu.config import MotionConfig
-from blockbasedmotionestimation_tpu.models import sequence
-from blockbasedmotionestimation_tpu.utils import flowio
+from blockbasedmotionestimation.config import MotionConfig
+from blockbasedmotionestimation.models import sequence
+from blockbasedmotionestimation.utils import flowio
 
 
 def _frames(rng, n=4, h=24, w=32):
@@ -56,8 +56,8 @@ def test_no_torn_checkpoint_tmp_left(tmp_path, rng):
 
 
 def test_sequence_batched_matches_single(tmp_path, rng):
-    from blockbasedmotionestimation_tpu.config import tiny_config
-    from blockbasedmotionestimation_tpu.models import sequence
+    from blockbasedmotionestimation.config import tiny_config
+    from blockbasedmotionestimation.models import sequence
 
     cfg = tiny_config(block_sizes=(8,), search_sizes=(16,), regularizer="windowed")
     frames = [rng.integers(0, 256, size=(48, 64), dtype=np.uint8) for _ in range(5)]
@@ -65,7 +65,7 @@ def test_sequence_batched_matches_single(tmp_path, rng):
     sequence.run_sequence(frames, d1, cfg)
     r = sequence.run_sequence(frames, d2, cfg, batch_size=3)
     assert [x.index for x in r] == [0, 1, 2, 3]
-    from blockbasedmotionestimation_tpu.utils import flowio
+    from blockbasedmotionestimation.utils import flowio
     for i in range(4):
         a = flowio.read_flo(str(d1 / sequence.flo_name(i)))
         b = flowio.read_flo(str(d2 / sequence.flo_name(i)))
@@ -76,8 +76,8 @@ def test_sequence_out_stride_and_f16(tmp_path, rng):
     # on-device subsampling + f16 transfer (the 4K D2H-tax controls): the
     # checkpoint holds exactly the full field subsampled at the stride, and
     # f16 is lossless for quarter-pel production-range values
-    from blockbasedmotionestimation_tpu.config import tiny_config
-    from blockbasedmotionestimation_tpu.utils import flowio
+    from blockbasedmotionestimation.config import tiny_config
+    from blockbasedmotionestimation.utils import flowio
 
     cfg = tiny_config(block_sizes=(8,), search_sizes=(16,), regularizer="windowed")
     frames = [rng.integers(0, 256, size=(48, 64), dtype=np.uint8) for _ in range(3)]

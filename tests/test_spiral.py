@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from blockbasedmotionestimation_tpu.ops import spiral
+from blockbasedmotionestimation.ops import spiral
 
 
 @pytest.mark.parametrize("shift", [0, 1, 2, 3, 4, 8, 16, 32, 10, 31])

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from blockbasedmotionestimation_tpu.utils import visualize
+from blockbasedmotionestimation.utils import visualize
 
 
 def test_dump_flow_text(tmp_path):

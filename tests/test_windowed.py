@@ -5,9 +5,9 @@ import os
 import numpy as np
 import pytest
 
-from blockbasedmotionestimation_tpu.config import MotionConfig
-from blockbasedmotionestimation_tpu.models import engine
-from blockbasedmotionestimation_tpu.utils import flowio, synth
+from blockbasedmotionestimation.config import MotionConfig
+from blockbasedmotionestimation.models import engine
+from blockbasedmotionestimation.utils import synth
 
 
 def _pair(rng, h, w, dy=2, dx=-3, margin=10):
@@ -84,7 +84,7 @@ def test_windowed_random_frames_close_to_fourcolor(rng):
     reason="reference gt-flow not mounted",
 )
 def test_windowed_epe_matches_fourcolor_on_dimetrodon():
-    from blockbasedmotionestimation_tpu.models import evaluate
+    from blockbasedmotionestimation.models import evaluate
 
     cfg4 = MotionConfig(
         block_sizes=(16, 16), search_sizes=(32, 32), interp_factor=1,
@@ -103,7 +103,7 @@ def test_windowed_epe_matches_fourcolor_on_dimetrodon():
 def test_windowed_tiled_equals_untiled(rng):
     import jax
     from jax.sharding import Mesh
-    from blockbasedmotionestimation_tpu.parallel import tiled
+    from blockbasedmotionestimation.parallel import tiled
 
     cfg = MotionConfig(
         block_sizes=(4, 4), search_sizes=(6, 6), interp_factor=1,
@@ -117,12 +117,13 @@ def test_windowed_tiled_equals_untiled(rng):
 
 
 def test_windowed_pallas_cv_matches_xla(rng):
-    # pallas_interpret CV path must be bit-identical to the XLA CV path
+    # the Pallas (Triton route, interpreted) CV path must be bit-identical
+    # to the XLA CV path
     cfgx = MotionConfig(
         block_sizes=(8, 8), search_sizes=(24, 24), interp_factor=1,
         regularizer="windowed", search_impl="xla",
     )
-    cfgp = cfgx.replace(search_impl="pallas_interpret")
+    cfgp = cfgx.replace(search_impl="triton_interpret")
     im1, im2 = _pair(rng, 64, 64, dy=1, dx=-2)
     a = np.asarray(engine.estimate_flow_driver(im1, im2, cfgx))
     b = np.asarray(engine.estimate_flow_driver(im1, im2, cfgp))
@@ -130,14 +131,14 @@ def test_windowed_pallas_cv_matches_xla(rng):
 
 
 def test_windowed_tiled_pallas_equals_untiled(rng):
-    # the fused Pallas color-step kernels under shard_map (traced row0)
+    # the Pallas cost-volume kernel under shard_map (traced row0)
     import jax
     from jax.sharding import Mesh
-    from blockbasedmotionestimation_tpu.parallel import tiled
+    from blockbasedmotionestimation.parallel import tiled
 
     cfg = MotionConfig(
         block_sizes=(4, 4), search_sizes=(6, 6), interp_factor=1,
-        regularizer="windowed", search_impl="pallas_interpret",
+        regularizer="windowed", search_impl="triton_interpret",
     )
     im1, im2 = _pair(rng, 128, 64, dy=1, dx=-1, margin=16)
     mesh = Mesh(np.array(jax.devices()), ("ty",))
@@ -151,7 +152,7 @@ def test_windowed_pallas_ssd_matches_xla(rng):
         block_sizes=(8, 8), search_sizes=(24, 24), interp_factor=1,
         regularizer="windowed", search_impl="xla", cost="ssd",
     )
-    cfgp = cfgx.replace(search_impl="pallas_interpret")
+    cfgp = cfgx.replace(search_impl="triton_interpret")
     im1, im2 = _pair(rng, 64, 64, dy=-2, dx=1)
     a = np.asarray(engine.estimate_flow_driver(im1, im2, cfgx))
     b = np.asarray(engine.estimate_flow_driver(im1, im2, cfgp))
@@ -164,8 +165,8 @@ def test_fused_search_winner_matches_block_search(rng):
     # windows, same costs, same (cost, spiral-rank) tie-break.
     import jax.numpy as jnp
 
-    from blockbasedmotionestimation_tpu.ops.search import block_search_level
-    from blockbasedmotionestimation_tpu.ops.windowed import windowed_level
+    from blockbasedmotionestimation.ops.search import block_search_level
+    from blockbasedmotionestimation.ops.windowed import windowed_level
 
     im1np, im2np = _pair(rng, 64, 64, dy=3, dx=-2)
     im1, im2 = jnp.asarray(im1np), jnp.asarray(im2np)
@@ -209,7 +210,7 @@ def test_rival_window_recovers_far_candidates(rng):
     # unrestricted gathers (motion_framework.cpp:594-602) do
     import jax.numpy as jnp
 
-    from blockbasedmotionestimation_tpu.ops.windowed import windowed_level
+    from blockbasedmotionestimation.ops.windowed import windowed_level
 
     h, w, bs, ss, dx = 96, 128, 8, 24, 20
     base = synth.textured_image(h + 64, w + 64, rng)
@@ -244,23 +245,59 @@ def test_rival_equals_windowed_when_no_exclusions(rng):
     assert (a == b).all(axis=-1).mean() > 0.9
 
 
-def test_rival_pallas_matches_xla():
-    # the rival-mode Pallas color-step kernels must be bit-identical to the
-    # XLA rival path, on a scene with real exclusions (the discontinuity
-    # strip from test_rival_window_recovers_far_candidates).  Subprocess-
-    # isolated: see _run_isolated.
-    _run_isolated("rival_pallas")
+def _rival_scene(rng):
+    # uniform +20 px motion: beyond the 2-level config's reach at the fine
+    # level's window, so rival windows carry real exclusions
+    h, w, dx = 96, 128, 20
+    base = synth.textured_image(h + 64, w + 64, rng)
+    return (
+        base[32 : 32 + h, 32 : 32 + w],
+        base[32 : 32 + h, 32 - dx : 32 - dx + w],
+    )
 
 
-def test_rival_pallas_matches_xla_radius8():
-    # reduced rival radius: still pallas == xla, and still repairs the strip
-    _run_isolated("rival_pallas_r8")
+def test_rival_pallas_matches_xla(rng):
+    # the rival volumes from the Pallas cost-volume kernel must give fields
+    # bit-identical to the XLA rival path, on a scene with real exclusions
+    cfgx = MotionConfig(
+        block_sizes=(8, 8), search_sizes=(24, 24), interp_factor=1,
+        regularizer="windowed", rival_window=True, rival_radius=None,
+    )
+    im1, im2 = _rival_scene(rng)
+    a = np.asarray(engine.estimate_flow_driver(im1, im2, cfgx))
+    b = np.asarray(engine.estimate_flow_driver(
+        im1, im2, cfgx.replace(search_impl="triton_interpret")
+    ))
+    np.testing.assert_array_equal(a, b)
 
 
-def test_rival_hybrid_middle_round_matches_xla():
-    # bs=16 puts a cur=8 round through the hybrid rival kernel (dense main
-    # CV + slab-recomputed rival at a deeper pooling level)
-    _run_isolated("rival_pallas_bs16")
+def test_rival_pallas_matches_xla_radius8(rng):
+    # reduced rival radius (r2 < R: the rival window has its own extent)
+    cfgx = MotionConfig(
+        block_sizes=(8, 8), search_sizes=(24, 24), interp_factor=1,
+        regularizer="windowed", rival_window=True, rival_radius=8,
+    )
+    im1, im2 = _rival_scene(rng)
+    a = np.asarray(engine.estimate_flow_driver(im1, im2, cfgx))
+    b = np.asarray(engine.estimate_flow_driver(
+        im1, im2, cfgx.replace(search_impl="triton_interpret")
+    ))
+    np.testing.assert_array_equal(a, b)
+
+
+def test_rival_bs16_pallas_matches_xla(rng):
+    # bs=16: the kernel pools a cur=8 middle round too (sizes 2..16)
+    cfgx = MotionConfig(
+        block_sizes=(16,), search_sizes=(48,), interp_factor=1,
+        regularizer="windowed", rival_window=True, rival_radius=8,
+    )
+    base = synth.textured_image(128, 160, rng)
+    im1, im2 = base[:96, :128], base[4:100, 3:131]
+    a = np.asarray(engine.estimate_flow_driver(im1, im2, cfgx))
+    b = np.asarray(engine.estimate_flow_driver(
+        im1, im2, cfgx.replace(search_impl="triton_interpret")
+    ))
+    np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("mode", ["windowed", "fourcolor"])
@@ -362,7 +399,7 @@ def test_rival_radius_per_level_tiled_equals_untiled(rng):
     # index, not just the radius value, is threaded through the tiled body)
     import jax
     from jax.sharding import Mesh
-    from blockbasedmotionestimation_tpu.parallel import tiled
+    from blockbasedmotionestimation.parallel import tiled
 
     cfg = MotionConfig(
         block_sizes=(4, 4), search_sizes=(6, 6), interp_factor=1,
@@ -378,12 +415,12 @@ def test_rival_radius_per_level_tiled_equals_untiled(rng):
 def test_rival_tiled_pallas_equals_untiled(rng):
     import jax
     from jax.sharding import Mesh
-    from blockbasedmotionestimation_tpu.parallel import tiled
+    from blockbasedmotionestimation.parallel import tiled
 
     cfg = MotionConfig(
         block_sizes=(4, 4), search_sizes=(6, 6), interp_factor=1,
         regularizer="windowed", rival_window=True,
-        search_impl="pallas_interpret",
+        search_impl="triton_interpret",
     )
     im1, im2 = _pair(rng, 128, 64, dy=1, dx=-1, margin=16)
     mesh = Mesh(np.array(jax.devices()), ("ty",))
@@ -392,33 +429,12 @@ def test_rival_tiled_pallas_equals_untiled(rng):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.skipif(
-    not os.environ.get("BBME_SLOW_TESTS"),
-    reason="interpret-mode compact kernels take ~3 min; set BBME_SLOW_TESTS=1",
-)
-def test_compact_cv_equals_dense_when_no_overflow(rng):
-    # K-slot compact cost-volume tables (ops.compact): bit-identical to the
-    # dense windowed path whenever every chunk's distinct-delta count fits K
-    # (a uniform translation with modest border junk here)
-    cfg_dense = MotionConfig(
-        block_sizes=(8, 8), search_sizes=(24, 24), interp_factor=1,
-        regularizer="windowed", search_impl="pallas_interpret",
-    )
-    cfg_compact = cfg_dense.replace(cv_compact=48)
-    base = synth.textured_image(80, 80, rng)
-    im1 = base[:48, :48]
-    im2 = base[2:50, 3:51]
-    a = np.asarray(engine.estimate_flow_driver(im1, im2, cfg_dense))
-    b = np.asarray(engine.estimate_flow_driver(im1, im2, cfg_compact))
-    np.testing.assert_array_equal(a, b)
-
-
 def test_fused_pallas_matches_xla(rng):
     cfgx = MotionConfig(
         block_sizes=(8, 8), search_sizes=(24, 24), interp_factor=1,
         regularizer="windowed", search_impl="xla",
     )
-    cfgp = cfgx.replace(search_impl="pallas_interpret")
+    cfgp = cfgx.replace(search_impl="triton_interpret")
     assert cfgx.uses_fused_windowed
     im1, im2 = _pair(rng, 64, 64, dy=2, dx=1)
     a = np.asarray(engine.estimate_flow_driver(im1, im2, cfgx))
@@ -426,55 +442,57 @@ def test_fused_pallas_matches_xla(rng):
     np.testing.assert_array_equal(a, b)
 
 
-def _run_isolated(scenario: str) -> None:
-    # the chunk-fused parity scenarios compile the suite's largest
-    # interpret-mode programs; XLA:CPU intermittently segfaults/aborts on
-    # them LATE in a long test process (crash sites inside
-    # backend_compile_and_load / executable serialization - reproduced at
-    # repo states that predate the fused kernels entirely).  A fresh
-    # subprocess removes the in-process history the crash depends on; the
-    # parity checks themselves live in tests/_isolated_worker.py.
-    import subprocess
-    import sys
-
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    worker = os.path.join(repo, "tests", "_isolated_worker.py")
-    env = dict(os.environ)
-    env.pop("XLA_FLAGS", None)  # worker provisions its own virtual mesh
-    env["PYTHONPATH"] = repo + (
-        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else ""
-    )
-    proc = subprocess.run(
-        [sys.executable, worker, scenario],
-        env=env, capture_output=True, text=True, timeout=1200,
-    )
-    assert proc.returncode == 0, (
-        f"{scenario} worker failed (rc {proc.returncode}):\n"
-        f"{proc.stdout}\n{proc.stderr}"
-    )
-
-
-def test_chunk_fused_cv_equals_dense():
-    # chunk-fused fine rounds (kernels.fused_step): candidate costs
-    # recomputed from VMEM-resident window slabs must be bit-identical to
-    # the dense cost-volume path - non-trivial flow (warped texture) so the
-    # delta bounding boxes are exercised beyond the uniform case
-    _run_isolated("chunk_fused_cv")
-
-
-@pytest.mark.skipif(
-    not os.path.isdir("/root/reference/middlebury/gt-flow"),
-    reason="reference gt-flow not mounted",
-)
-def test_chunk_fused_rival_equals_dense():
-    # fused + rival composition: the rival slab recompute must match the
-    # dense rival cost volumes bit for bit, on real flow geometry
-    _run_isolated("chunk_fused_rival")
-
-
 def test_rstore_equals_dense():
-    # r_store (cv_store_radius): dx-restricted cur=2 volume + slab-
-    # recomputed tail must be bit-identical to the dense path on real
-    # discontinuity geometry (heap-isolated: large interpret compiles,
-    # DESIGN.md section 8b)
-    _run_isolated("rstore")
+    # seeded multi-motion geometry within the search reach, one level: the
+    # prediction is zero, so every candidate lies inside the primary window
+    # and nothing is excluded - windowed with rival windows must then equal
+    # fourcolor bit for bit (the rival volumes are built but never adopted)
+    im1, im2, _ = synth.multi_motion_pair(64, 96, seed=4, max_motion=6)
+    cfg4 = MotionConfig(
+        block_sizes=(8,), search_sizes=(24,), interp_factor=1,
+        regularizer="fourcolor",
+    )
+    a = np.asarray(engine.estimate_flow_driver(im1, im2, cfg4))
+    for rr in (None, 4):
+        cfgr = cfg4.replace(
+            regularizer="windowed", rival_window=True, rival_radius=rr
+        )
+        b = np.asarray(engine.estimate_flow_driver(im1, im2, cfgr))
+        np.testing.assert_array_equal(a, b)
+
+
+def _masked_sweep(cv, ddy, ddx, r, m2, n2, lci, lcj):
+    """Reference candidate selection: 1-hot masked sums over every delta."""
+    side = 2 * r + 1
+    slab = np.asarray(cv).reshape(side * side, m2, 2, n2, 2)[:, :, lci, :, lcj]
+    dy = np.clip(np.asarray(ddy) + r, 0, side - 1)
+    dx = np.clip(np.asarray(ddx) + r, 0, side - 1)
+    out = np.zeros(dy.shape, np.float32)
+    for d in range(side * side):
+        hit = (dy * side + dx) == d
+        out += np.where(hit, slab[d][..., None].astype(np.float32), 0.0)
+    return out
+
+
+@pytest.mark.parametrize(
+    "r,dtype,lci,lcj",
+    [(2, np.uint16, 0, 0), (3, np.uint16, 1, 0), (4, np.int32, 0, 1),
+     (1, np.float32, 1, 1)],
+)
+def test_select_costs_matches_masked_sweep(rng, r, dtype, lci, lcj):
+    # the color step's candidate read (one gather per candidate) must equal
+    # the masked sweep over all (2R+1)^2 deltas bit for bit, including keys
+    # outside [-R, R] (clipped; masked out-of-window downstream) and int32
+    # costs above 2^24 (both round once on the f32 cast)
+    from blockbasedmotionestimation.ops.windowed import _select_costs
+
+    side = 2 * r + 1
+    m2, n2 = 3, 5
+    hi = 1 << 30 if dtype == np.int32 else 60000
+    cv = rng.integers(0, hi, size=(side * side, 2 * m2, 2 * n2)).astype(dtype)
+    ddy = rng.integers(-r - 2, r + 3, size=(m2, n2, 9)).astype(np.int32)
+    ddx = rng.integers(-r - 2, r + 3, size=(m2, n2, 9)).astype(np.int32)
+    got = np.asarray(_select_costs(cv, ddy, ddx, r, m2, n2, lci, lcj))
+    want = _masked_sweep(cv, ddy, ddx, r, m2, n2, lci, lcj)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
